@@ -1,19 +1,17 @@
-"""On-chip tuning of compact_rows' block height.
+"""Tune compact_rows' block height (ops/compact.COMPACT_BLOCK).
 
-The stable block compaction (ops/compact.py) is ~17% of the fused
-kernel; its cost splits between the batched 1-bit block sorts (deeper
-for bigger blocks) and the sequential dynamic_update_slice loop (more
-iterations for smaller blocks). This times the real payload shape of
-the packed-key join -- (u64 key, i32 count), ~50% kept -- across
-block heights in one chip session.
+The stable block compaction's cost splits between the batched 1-bit
+block sorts (deeper for bigger blocks) and the sequential
+dynamic_update_slice loop (more iterations for smaller blocks). This
+times the payload shape of the packed-key join -- (u64 key, i32
+count), ~50% kept -- across block heights in one process.
 
 Run:  python scripts/profiling/bench_compact.py [logE]
 """
 
 import sys
-import time
 
-sys.path.insert(0, "/root/repo")
+from harness import device_line, median_seconds
 
 import jax
 import jax.numpy as jnp
@@ -28,25 +26,16 @@ rng = np.random.default_rng(0)
 key = jnp.asarray(rng.integers(0, 1 << 45, size=E, dtype=np.uint64))
 cnt = jnp.asarray(rng.integers(1, 30, size=E, dtype=np.int32))
 kept = jnp.asarray(rng.random(E) < 0.5)
+dev = device_line()
 
 for block in (1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18):
-
-    @jax.jit
-    def run(key, cnt, kept, block=block):
-        k2, c2 = compact_rows(
+    run = jax.jit(
+        lambda key, cnt, kept, block=block: compact_rows(
             (key, cnt), kept,
             fills=(jnp.uint64(0xFFFFFFFFFFFFFFFF), 0),
             block=block,
         )
-        return (k2[0] + c2.astype(jnp.uint64)[1]).astype(jnp.float32)
-
-    try:
-        float(np.asarray(run(key, cnt, kept)))
-        iters = 5
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            float(np.asarray(run(key, cnt, kept)))
-        dt = (time.perf_counter() - t0) / iters
-        print(f"block={block:7d}  {dt * 1e3:7.1f} ms", flush=True)
-    except Exception as e:
-        print(f"block={block:7d}  FAILED {type(e).__name__}", flush=True)
+    )
+    dt = median_seconds(run, key, cnt, kept)
+    print(f"E=2^{LOG_E} block={block:7d}  {dt * 1e3:.3f} ms | {dev}",
+          flush=True)

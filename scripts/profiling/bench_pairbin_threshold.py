@@ -1,16 +1,15 @@
-"""On-chip A/B of the multi-pass triangle pair-bin path vs the 4-pass
-per-shift loop in the 16 < N <= 32 band (ROADMAP lever 2 extension).
+"""A/B of the multi-pass triangle pair-bin path vs the 4-pass
+per-shift loop in the 16 < N <= 32 band (ops/countjoin.PAIRBIN_MAX_BANKS).
 
 Flips ops.countjoin.PAIRBIN_MAX_BANKS between runs (clearing the jit
 cache so the gate is re-traced) so both paths see identical inputs.
 
-Run on the TPU:  python scripts/profiling/bench_pairbin_threshold.py [N ...]
+Run:  python scripts/profiling/bench_pairbin_threshold.py [N ...]
 """
 
 import sys
-import time
 
-sys.path.insert(0, "/root/repo")
+from harness import device_line, median_seconds
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +18,7 @@ import numpy as np
 from simka_tpu.ops import countjoin
 
 
-def bench_n(n_banks: int, E: int = 1 << 23, iters: int = 3) -> float:
+def bench_n(n_banks: int, E: int = 1 << 23):
     rng = np.random.default_rng(0)
     space = E // 2
     vals = rng.integers(0, space, size=E, dtype=np.uint64)
@@ -29,26 +28,19 @@ def bench_n(n_banks: int, E: int = 1 << 23, iters: int = 3) -> float:
 
     @jax.jit
     def step(hi, lo, sid):
-        js = countjoin.count_join_stats(
+        return countjoin.count_join_stats(
             hi, lo, sid, jnp.int32(1), jnp.int64(10**9),
             n_banks=n_banks, hi_bits=10,
         )
-        return (
-            js.nb_distinct
-            + js.shared_distinct[0, 1]
-            + js.bray_numerator[0, 1]
-            + js.shared_kmers_ab[0, 1]
-        ).astype(jnp.float32)
 
-    check = float(np.asarray(step(hi, lo, sid)))  # compile
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        float(np.asarray(step(hi, lo, sid)))
-    dt = (time.perf_counter() - t0) / iters
+    dt = median_seconds(step, hi, lo, sid)
+    js = step(hi, lo, sid)
+    check = (int(js.nb_distinct), np.asarray(js.bray_numerator).tobytes())
     return E / dt, check
 
 
 if __name__ == "__main__":
+    dev = device_line()
     ns = [int(a) for a in sys.argv[1:]] or [20, 24, 32]
     for n in ns:
         results = {}
@@ -60,9 +52,8 @@ if __name__ == "__main__":
             results[path] = (rate, check)
             print(
                 f"N={n:3d}  thresh={thresh:3d} ({path:11s})  "
-                f"{rate / 1e6:8.1f} M kmers/s  check={check}",
+                f"{rate / 1e6:.3f} M kmers/s | {dev}",
                 flush=True,
             )
-        vals = {c for _, c in results.values()}
-        if len(vals) != 1:
-            print(f"N={n}: CHECK MISMATCH {results}", flush=True)
+        if len({c for _, c in results.values()}) != 1:
+            print(f"N={n}: CHECK MISMATCH between the paths", flush=True)

@@ -1,19 +1,17 @@
-"""On-chip A/B of the singleton-prune program split vs the fused join
-at wide N and realistic singleton fractions (ROADMAP lever 3 /
-VERDICT r3 next-step 2).
+"""A/B of the singleton-prune program split vs the fused join at wide
+N and realistic singleton fractions (ops/countjoin.SPLIT_MIN_BANKS).
 
 Stream model: values below a cut are forced single-bank, so the
 fraction of (kmer, bank) rows sitting in size-1 segments is ~f +
 (1-f)/N -- 50-80% covers real metagenomes.
 
-Run on the TPU:
-  python scripts/profiling/bench_split_join.py [N ...]
+Run:  python scripts/profiling/bench_split_join.py [N ...]
 """
 
+import functools
 import sys
-import time
 
-sys.path.insert(0, "/root/repo")
+from harness import device_line, median_seconds
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,29 +34,17 @@ def make_stream(rng, E, n_banks, singleton_frac):
     return jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(sid)
 
 
-def checksum(js):
-    return float(
-        np.asarray(
-            js.nb_distinct
-            + js.shared_distinct[0, 1]
-            + js.bray_numerator[0, 1]
-            + js.shared_kmers_ab[0, 1]
-        )
-    )
-
-
-def bench(fn, hi, lo, sid, n_banks, iters=3):
-    kw = dict(n_banks=n_banks, hi_bits=10)
+def bench(fn, hi, lo, sid, n_banks):
+    f = functools.partial(fn, n_banks=n_banks, hi_bits=10)
     args = (hi, lo, sid, jnp.int32(1), jnp.int64(10**9))
-    c = checksum(fn(*args, **kw))  # compile
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        checksum(fn(*args, **kw))
-    dt = (time.perf_counter() - t0) / iters
-    return hi.shape[0] / dt, c
+    dt = median_seconds(f, *args, iters=3)
+    js = f(*args)
+    check = (int(js.nb_distinct), np.asarray(js.bray_numerator).tobytes())
+    return hi.shape[0] / dt, check
 
 
 if __name__ == "__main__":
+    dev = device_line()
     ns = [int(a) for a in sys.argv[1:]] or [50, 128]
     E = 1 << 23
     for n in ns:
@@ -66,13 +52,11 @@ if __name__ == "__main__":
             rng = np.random.default_rng(1)
             hi, lo, sid = make_stream(rng, E, n, frac)
             r_fused, c1 = bench(count_join_stats, hi, lo, sid, n)
-            r_split, c2 = bench(
-                count_join_stats_split, hi, lo, sid, n
-            )
+            r_split, c2 = bench(count_join_stats_split, hi, lo, sid, n)
             flag = "" if c1 == c2 else "  CHECK MISMATCH"
             print(
-                f"N={n:4d} f={frac}  fused {r_fused / 1e6:7.1f}M  "
-                f"split {r_split / 1e6:7.1f}M  "
-                f"({r_split / r_fused:.2f}x){flag}",
+                f"N={n:4d} f={frac}  fused {r_fused / 1e6:.3f}M  "
+                f"split {r_split / 1e6:.3f}M kmers/s "
+                f"({r_split / r_fused:.3f}x){flag} | {dev}",
                 flush=True,
             )

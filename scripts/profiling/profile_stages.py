@@ -1,11 +1,17 @@
-"""Stage-level profile of the fused count+join program on the TPU."""
-import sys; sys.path.insert(0, "/root/repo")
-import functools
-import time
+"""Stage-level profile of the fused count+join program (generic
+3-key sort path, E=2^24, N=8): sort, run-length counts, compaction and
+the pair stage, each as its own jitted program.
 
-import numpy as np
+Run:  python scripts/profiling/profile_stages.py
+"""
+
+import functools
+
+from harness import device_line, median_seconds
+
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from simka_tpu.ops.compact import compact_rows
 from simka_tpu.ops.kmers import SENTINEL
@@ -27,9 +33,7 @@ def _suffix_min(x):
 
 @jax.jit
 def stage_sort1(hi, lo, sid):
-    s = jax.lax.sort((hi, lo, sid), num_keys=3)
-    return (s[0][123456].astype(jnp.float32)
-            + s[1][654321].astype(jnp.float32) + s[2][111].astype(jnp.float32))
+    return jax.lax.sort((hi, lo, sid), num_keys=3)
 
 
 @jax.jit
@@ -50,8 +54,7 @@ def stage_pass1(hi, lo, sid):
     next_start = _suffix_min(starts_after)
     count = next_start - idx
     kept = boundary & real & (count >= 1)
-    return (jnp.sum(kept.astype(jnp.int32)).astype(jnp.float32)
-            + count[12345].astype(jnp.float32))
+    return words, sid2, count, kept
 
 
 @jax.jit
@@ -72,10 +75,8 @@ def stage_pass1_compact(hi, lo, sid):
     next_start = _suffix_min(starts_after)
     count = next_start - idx
     kept = boundary & real & (count >= 1)
-    c = compact_rows((*words, sid2, count), kept,
-                     fills=(SENTINEL, SENTINEL, 0, 0))
-    return (c[0][123].astype(jnp.float32) + c[2][456].astype(jnp.float32)
-            + c[3][789].astype(jnp.float32) + jnp.sum(c[1][:100]).astype(jnp.float32))
+    return compact_rows((*words, sid2, count), kept,
+                        fills=(SENTINEL, SENTINEL, 0, 0))
 
 
 f = functools.partial(countjoin.count_join_stats, n_banks=n_banks)
@@ -83,19 +84,15 @@ f = functools.partial(countjoin.count_join_stats, n_banks=n_banks)
 
 @jax.jit
 def stage_full(hi, lo, sid):
-    js = f(hi, lo, sid, jnp.int32(1), jnp.int64(10**9))
-    return (js.nb_distinct + js.shared_distinct[0, 1]
-            + js.bray_numerator[0, 1] + js.shared_kmers_ab[0, 1]).astype(jnp.float32)
+    return f(hi, lo, sid, jnp.int32(1), jnp.int64(10**9))
+
+
+dev = device_line()
 
 
 def timeit(fn, name):
-    float(np.asarray(fn(hi, lo, sid)))
-    iters = 3
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        float(np.asarray(fn(hi, lo, sid)))
-    dt = (time.perf_counter() - t0) / iters
-    print(f"{name:22s} {dt*1000:8.1f} ms")
+    dt = median_seconds(fn, hi, lo, sid, iters=3)
+    print(f"{name:22s} {dt * 1000:.3f} ms | {dev}")
     return dt
 
 
@@ -103,5 +100,6 @@ t_sort = timeit(stage_sort1, "sort1 only")
 t_p1 = timeit(stage_pass1, "pass1 (sort+runlen)")
 t_p1c = timeit(stage_pass1_compact, "pass1+compact")
 t_all = timeit(stage_full, "full step")
-print(f"-> compaction     {1000*(t_p1c-t_p1):8.1f} ms")
-print(f"-> pass3 einsums  {1000*(t_all-t_p1c):8.1f} ms (incl binned sums + seg)")
+print(f"-> compaction     {1000 * (t_p1c - t_p1):.3f} ms | {dev}")
+print(f"-> pair stage     {1000 * (t_all - t_p1c):.3f} ms "
+      f"(incl binned sums + seg) | {dev}")

@@ -14,26 +14,41 @@ import time
 import numpy as np
 
 
-def make_datasets(n_samples=50, reads_per_sample=400, read_len=120):
-    rng = np.random.default_rng(7)
+def make_genomes(rng, n_genomes=10, genome_len=20_000) -> np.ndarray:
+    """[n_genomes, genome_len] random ASCII source genomes."""
     bases = np.frombuffer(b"ACGT", np.uint8)
-    # 10 source genomes; each sample mixes 3 of them plus noise
-    genomes = [
-        rng.choice(bases, size=20_000).tobytes() for _ in range(10)
-    ]
+    return bases[rng.integers(0, 4, size=(n_genomes, genome_len))]
+
+
+def make_reads(
+    rng, genomes, picks, n_reads, read_len, weights=None, noise=0.005
+) -> np.ndarray:
+    """[n_reads, read_len] ASCII reads drawn from the genomes in
+    ``picks`` (with relative abundances ``weights``), with ~``noise``
+    substitution errors; half of the reads are reverse complements."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    g = np.asarray(picks)[rng.choice(len(picks), size=n_reads, p=weights)]
+    start = rng.integers(0, genomes.shape[1] - read_len, size=n_reads)
+    reads = genomes[g[:, None], start[:, None] + np.arange(read_len)]
+    err = rng.random(reads.shape) < noise
+    reads[err] = bases[rng.integers(0, 4, size=int(err.sum()))]
+    comp = np.zeros(256, np.uint8)
+    comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
+    flip = rng.random(n_reads) < 0.5
+    reads[flip] = comp[reads[flip, ::-1]]
+    return reads
+
+
+def make_datasets(n_samples=50, reads_per_sample=400, read_len=120):
+    """Samples as lists of read byte strings: 10 source genomes, each
+    sample mixes 3 of them plus noise (so samples overlap)."""
+    rng = np.random.default_rng(7)
+    genomes = make_genomes(rng)
     datasets = []
-    for s in range(n_samples):
-        picks = rng.choice(10, size=3, replace=False)
-        reads = []
-        for _ in range(reads_per_sample):
-            g = genomes[int(rng.choice(picks))]
-            start = int(rng.integers(0, len(g) - read_len))
-            read = bytearray(g[start : start + read_len])
-            # ~0.5% substitution noise
-            for p in np.nonzero(rng.random(read_len) < 0.005)[0]:
-                read[p] = int(rng.choice(bases))
-            reads.append(bytes(read))
-        datasets.append(reads)
+    for _ in range(n_samples):
+        picks = rng.choice(len(genomes), size=3, replace=False)
+        reads = make_reads(rng, genomes, picks, reads_per_sample, read_len)
+        datasets.append([r.tobytes() for r in reads])
     return datasets
 
 

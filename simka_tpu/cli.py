@@ -19,7 +19,7 @@ def build_simka_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="simka-tpu",
         description=(
-            "TPU-native comparative metagenomics: k-mer spectra and "
+            "Comparative metagenomics on JAX: k-mer spectra and "
             "ecological distance matrices between N samples"
         ),
     )
@@ -108,9 +108,23 @@ def simka_main(argv) -> int:
     return 0
 
 
+def log_device() -> None:
+    """One stderr line naming the backend this run executes on."""
+    from simka_tpu.utils.metrics import device_report
+
+    d = device_report()
+    print(
+        f"[simka-tpu] backend {d['platform']}: {d['count']} x "
+        f"{d['kind']}",
+        file=sys.stderr,
+        flush=True,
+    )
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
+        log_device()
         if argv and argv[0] == "min":
             from simka_tpu.minhash.cli import min_main
 

@@ -45,7 +45,7 @@ class SimkaConfig:
     keep_tmp: bool = False
     verbose: bool = True
 
-    # TPU-native knobs (no reference equivalent)
+    # device knobs (no reference equivalent)
     n_shards: int = 0  # 0: use all local devices for k-mer-space sharding
     sweep_ranges: int = 0  # out-of-core hash-range sweep (needs
     # -out-tmp): 0 = auto (sweep only when the projected join exceeds

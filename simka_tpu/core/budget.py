@@ -2,10 +2,10 @@
 
 The reference sizes jobs and partition counts so every merge fits the
 user's -max-memory (src/SimkaPotara.hpp:617-713: per-dataset
-ConfigurationAlgorithm memory split; :713-723 partition count). The
-TPU analog bounds the FUSED JOIN's working set by device HBM: the
-default device-resident paths accumulate extracted k-mer words in HBM
-until the join, so a run whose instance stream exceeds the budget must
+ConfigurationAlgorithm memory split; :713-723 partition count). Here
+the plan bounds the FUSED JOIN's working set by device memory: the
+default device-resident paths accumulate extracted k-mer words on the
+device until the join, so a run whose instance stream exceeds the budget must
 fall back to the out-of-core route (count per-sample spectra ->
 hash-range spill -> sweep, core/sweep.py) BEFORE the device allocator
 fails mid-run.
@@ -24,42 +24,53 @@ from __future__ import annotations
 import os
 
 # The fused join holds roughly this multiple of the raw row payload
-# (sort buffers, compaction columns, panels, one-hot operands) --
-# same factor core/sweep.choose_n_ranges uses for the host path.
+# (sort buffers, compaction columns, segment scans; the pair stage's
+# one-hot and limb temporaries are bounded per row chunk, see
+# ops/intmatmul.chunked_sum) -- same factor core/sweep.choose_n_ranges
+# uses for the host path. XLA:GPU's memory analysis of the 2^28-row
+# join on an H100 gives 6.2-6.8x the 12-byte k <= 31 row for N=8
+# (scripts/profiling/join_memory.py).
 JOIN_WORKING_SET_FACTOR = 8
 
 # Fraction of the device's reported memory the join may plan to use
 # (headroom for the XLA runtime, programs and transient buffers).
 HBM_PLAN_FRACTION = 0.6
 
-_DEFAULT_HBM_BYTES = 16_000_000_000  # v5e-class chip
+# The CPU backend reports no allocator limit; the plan then assumes
+# this much memory for its "device" (tests force smaller plans through
+# SIMKA_TPU_HBM_MB).
+CPU_BACKEND_BYTES = 8_000_000_000
 
 
 class HBMBudgetExceeded(RuntimeError):
-    """The device-resident ingest would exceed the HBM plan; the
+    """The device-resident ingest would exceed the memory plan; the
     caller must re-run through the out-of-core sweep."""
+
+
+def device_memory_bytes() -> int:
+    """Allocator limit of the first local device: the GPU's
+    ``memory_stats()["bytes_limit"]`` (what XLA's client reserved for
+    this process), or CPU_BACKEND_BYTES for a device that reports no
+    memory stats."""
+    import jax
+
+    stats = jax.local_devices()[0].memory_stats()
+    if stats is None:
+        return CPU_BACKEND_BYTES
+    return int(stats["bytes_limit"])
 
 
 def hbm_budget_bytes() -> int:
     """Per-device bytes the join may plan with.
 
     SIMKA_TPU_HBM_MB overrides (also how tests force the out-of-core
-    path on small inputs); otherwise the device's reported bytes_limit
-    times the plan fraction; otherwise a v5e-class default.
+    path on small inputs); otherwise the device's memory limit times
+    the plan fraction.
     """
     env = os.environ.get("SIMKA_TPU_HBM_MB")
     if env:
         return int(float(env) * 1_000_000)
-    try:
-        import jax
-
-        stats = jax.local_devices()[0].memory_stats()
-        limit = (stats or {}).get("bytes_limit", 0)
-        if limit:
-            return int(limit * HBM_PLAN_FRACTION)
-    except Exception:
-        pass
-    return int(_DEFAULT_HBM_BYTES * HBM_PLAN_FRACTION)
+    return int(device_memory_bytes() * HBM_PLAN_FRACTION)
 
 
 def instance_rows_budget(n_words: int, n_shards: int = 1) -> int:

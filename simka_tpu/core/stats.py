@@ -4,7 +4,7 @@ Host-side mirror of the reference's ``SimkaStatistics``
 (src/core/SimkaDistance.hpp:68-139, .cpp:27-213): everything the 20+
 distance formulas need, as exact numpy arrays. Addition is elementwise
 (the reference's ``operator+=``, SimkaDistance.cpp:156-213), which is
-what makes multi-shard / multi-chip reduction trivial (psum on device,
+what makes multi-shard / multi-device reduction trivial (psum on device,
 ``+`` on host).
 """
 
@@ -97,9 +97,8 @@ class SimkaStatistics:
           log2 * ((K_i - sharedK[i][j])/K_i + (K_j - sharedK[j][i])/K_j).
         """
         n = len(dataset_ids)
-        # ONE transfer for every accumulator: per-field np.asarray was
-        # ~14 sequential device round trips, a visible fraction of
-        # end-to-end wall-clock on a high-latency link
+        # ONE transfer for every accumulator instead of ~14
+        # sequential per-field device syncs
         try:
             import jax
 

@@ -27,6 +27,9 @@ def _build() -> Optional[str]:
         _SRC
     ):
         return _LIB
+    # build beside the target and rename: concurrent processes (test
+    # workers) must never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = [
         "g++",
         "-O3",
@@ -35,14 +38,15 @@ def _build() -> Optional[str]:
         "-fPIC",
         _SRC,
         "-o",
-        _LIB,
+        tmp,
         "-lz",
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return _LIB
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return None
+    os.replace(tmp, _LIB)
+    return _LIB
 
 
 def get_lib():

@@ -56,7 +56,7 @@ class FastxReader {
 
   // Reads the next sequence into seq_. Returns false at EOF or on a
   // malformed record (error() then holds a message -- silent
-  // mis-parse is worse than a hard stop; VERDICT r4 weak #6).
+  // mis-parse is worse than a hard stop).
   bool next() {
     seq_.clear();
     if (!file_ || error_) return false;
@@ -277,7 +277,7 @@ int64_t fastx_read_raw_batch(void* handle, int64_t max_reads,
 // bitorder) with the next batch of filtered reads -- the exact layout
 // of simka_tpu.ops.kmers.pack_codes_host, produced in ONE pass at
 // parse time so Python never touches read bytes and the host->device
-// link carries 0.375 B/base. width must be a multiple of 8.
+// copy carries 0.375 B/base. width must be a multiple of 8.
 // *n_valid accumulates the number of valid k-mer windows (positions
 // whose next kmer_size bases are all ACGT) across the batch's reads
 // -- the device join can then be sliced to the true window count

@@ -3,28 +3,27 @@
 The join's pass 2 (ops/countjoin.py) only needs to make the surviving
 (kmer, sample, count) rows CONTIGUOUS while preserving the pass-1
 (kmer, sample) order -- dropping rows never reorders them.  That is a
-stable compaction, not a sort, so the original full-width 3-key
-``lax.sort`` (which was ~30-40%% of the fused kernel's runtime on TPU)
+stable compaction, not a sort, so a full-width 3-key ``lax.sort``
 is overkill.  It corresponds to the reference's behaviour of simply
 never *writing* abundance-filtered k-mers to the partition files
 (SimkaCompressedProcessor::process, src/minikc/MiniKC.hpp:56) rather
 than re-sorting them away.
 
-TPU-native scheme (no gathers, no scatters -- both serialize on TPU,
-measured 10-40x slower than the alternatives in round-1 profiling):
+Scheme (no gathers, no scatters):
 
   1. batched stable ``lax.sort`` of BLOCK-sized row groups on the
-     1-bit drop key: each block lands VMEM-resident, so the sort depth
-     is log^2(BLOCK) instead of log^2(E) and there is a single 8-bit
-     key instead of three u32 keys;
+     1-bit drop key: the sort depth is log^2(BLOCK) instead of
+     log^2(E) and there is a single 8-bit key instead of three u32
+     keys;
   2. inter-block gaps are closed by a sequential ``fori_loop`` of
      in-place ``dynamic_update_slice`` writes at each block's global
      rank offset.  Writes are ordered, so a block's fill-masked tail
      is overwritten by the next block's head; the final tail keeps the
      fill value from the pre-initialized output.
 
-Everything is a contiguous read/write -- the whole pass is ~2 HBM
-round trips of the payload instead of a full-width bitonic sort.
+Everything is a contiguous read/write.  On a GPU the same gap-close
+could be one cumsum plus one scatter; which is faster there is not
+yet measured (ROADMAP.md, speed item 3).
 """
 
 from __future__ import annotations
@@ -34,14 +33,9 @@ import jax.numpy as jnp
 
 # Block height for the local stable sorts.  Large enough that the
 # dynamic_update_slice loop has few iterations (E/BLOCK), small enough
-# that one block of all payload columns stays VMEM-resident for the
-# batched sort.  Tuned on chip (v5e, E=2^24 u64-key+count payload,
-# scripts/profiling/bench_compact.py): standalone 4096=61.5ms
-# 8192=55.3 16384=53.5 32768=54.4 65536=58.2 131072=63.4 262144=69.3.
-# 16384 wins standalone but measured a 2% REGRESSION inside the fused
-# count+join kernel (123.3 -> 120.7M k-mers/s) -- the extra
-# dynamic_update_slice iterations interact badly with the surrounding
-# fusion -- so the fused-kernel optimum 32768 stays.
+# that the batched block sort stays shallow.  The value was tuned on
+# the system's earlier accelerator and is not yet measured on the GPU
+# (scripts/profiling/bench_compact.py; ROADMAP.md, speed item 3).
 COMPACT_BLOCK = 32768
 
 
@@ -106,20 +100,12 @@ def compact_rows(
             jax.lax.pcast(o, vary_axes, to="varying") for o in outs
         )
 
-    from simka_tpu.ops.pallas_compact import gapclose, pallas_available
+    def body(b, outs):
+        off = offs[b]
+        return tuple(
+            jax.lax.dynamic_update_slice(o, v[b], (off,))
+            for o, v in zip(outs, vals)
+        )
 
-    if pallas_available():
-        # one grid traversal of dynamic-offset DMAs instead of
-        # nblocks sequential dynamic_update_slice dispatches (the
-        # loop overhead, not the bytes, dominated this phase)
-        outs = gapclose(offs[:nblocks], outs, vals, block)
-    else:
-        def body(b, outs):
-            off = offs[b]
-            return tuple(
-                jax.lax.dynamic_update_slice(o, v[b], (off,))
-                for o, v in zip(outs, vals)
-            )
-
-        outs = jax.lax.fori_loop(0, nblocks, body, outs)
+    outs = jax.lax.fori_loop(0, nblocks, body, outs)
     return tuple(o[:E] for o in outs)

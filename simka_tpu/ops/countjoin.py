@@ -22,8 +22,9 @@ Design:
   4. pair statistics are accumulated SCATTER-FREE: for each offset
      d in 1..max_multiplicity-1, neighbor rows d apart that share a
      k-mer form pairs, and each value type is binned into the [N, N]
-     upper triangle by a panelled one-hot einsum on the MXU (measured
-     ~10x faster than XLA TPU scatter).
+     upper triangle by a panelled one-hot einsum (a scatter-free
+     formulation; whether an integer segment_sum is faster on the GPU
+     is not yet measured -- ROADMAP.md, speed item 5).
 
 Single-presence terms of the complex distances (the reference's
 asymmetric zero-count branches, SimkaAlgorithm.hpp:488-515) are NOT
@@ -37,7 +38,7 @@ u_int64_t on every += (SimkaDistance.hpp:105,111), so hellinger
 contributes floor(sqrt(Ni*Nj)) per k-mer and canberra degenerates to
 the closed form b+c. We reproduce those semantics bit-exactly through
 limb-split f32 einsums, which also makes every reduction
-order-independent -> deterministic across chip counts (the
+order-independent -> deterministic across device counts (the
 reference's §4 invariance test). Only chord_NiNj and the
 Kullback-Leibler pair sums are floating-point (double-float f32
 einsums, ~1e-7 relative), matching the reference's own use of long
@@ -53,30 +54,28 @@ import jax
 import jax.numpy as jnp
 
 from simka_tpu.ops.compact import compact_rows
-from simka_tpu.ops.intmatmul import BLOCK_ROWS, binned_sum
+from simka_tpu.ops.intmatmul import BLOCK_ROWS, binned_sum, chunked_sum
 from simka_tpu.ops.kmers import SENTINEL
 
 LOG2 = 0.6931471805599453
 
 # Widest N the triangle pair-bin path auto-selects for. The path
 # generalizes to ceil(N(N-1)/2 / 128) one-hot blocks per shift, which
-# on pass count should beat the 4-pass per-shift loop up to N = 32 --
-# but the round-4 chip A/B (scripts/profiling/bench_pairbin_threshold
-# .py, E=2^23, v5e) measured the multi-block regime LOSING across the
-# band: N=20 65.0 vs 76.7, N=24 46.8 vs 76.8, N=32 35.6 vs 69.2
-# M k-mers/s (identical checksums). Only the single-block regime
-# (tri <= 128 lanes) wins, so the threshold stays at 16.
+# on pass count should beat the 4-pass per-shift loop up to N = 32.
+# The value 16 (the single-block regime, tri <= 128 columns) was set
+# by an A/B on the system's earlier accelerator and is not yet
+# measured on the GPU (scripts/profiling/bench_pairbin_threshold.py;
+# ROADMAP.md, speed item 5).
 PAIRBIN_MAX_BANKS = 16
 
 # Auto threshold for the singleton-prune program split (see Prejoin):
 # the prune pays a second compaction + one host sync to shrink every
 # pair-pass operand, so it wins where the pair stage dominates -- the
-# wide-N per-shift-loop regime -- and loses at small N (round-3
-# analysis: N=8 would spend ~28ms compacting to save ~9ms). Round-4
-# chip A/B (scripts/profiling/bench_split_join.py, E=2^23, identical
-# checksums): N=50 1.00x at 50% singleton rows / 1.19x at 80%; N=128
-# 1.75x / 2.40x. Never measured below break-even in the loop regime,
-# so the split turns on where the loop does.
+# wide-N per-shift-loop regime -- and loses at small N, where the
+# extra compaction costs more than it saves. The split turns on where
+# the loop does; the value was set by an A/B on the system's earlier
+# accelerator and is not yet measured on the GPU
+# (scripts/profiling/bench_split_join.py; ROADMAP.md, speed item 5).
 SPLIT_MIN_BANKS = 33
 
 
@@ -173,9 +172,11 @@ def _pair_bin_int(
     < 2**bits. Returns [N, N] int64 with
     out[i][j] = sum over rows of value * oh_a[i] * oh_b[j].
 
-    8-bit limbs: TPU MXU matmuls default to bf16 operands (8 mantissa
-    bits); limb values <= 255 convert exactly and panel sums stay
-    < 2^21, exact in the f32 accumulator.
+    8-bit limbs: a float32 matmul at default precision may round its
+    operands (TF32 on the GPU keeps 10 explicit mantissa bits); limb
+    values <= 255 convert exactly under any operand format with at
+    least 8 significant bits, and panel sums stay < 2^21, exact in
+    the f32 accumulator.
 
     ``max_value``: optional traced i64 upper bound on ``values``.
     Limbs above the bound are skipped AT RUNTIME via lax.cond --
@@ -240,53 +241,62 @@ def _whittaker_all_banks(sid_m, cnt_m, K, *, n_banks: int):
 
     The exact-wrap replacement of the old UNwrapped single-presence
     closed form (PARITY.md divergence 3): per j-block, the wrapped
-    values are limb-split into 8-bit lanes and contracted against the
-    bank one-hot on the MXU (exact: one-hot x <=255 operands, panel
-    sums < 2^21 in the f32 accumulator).
+    values are limb-split into 8-bit limbs and contracted against the
+    bank one-hot by a float32 matmul (exact: one-hot x <=255 operands
+    survive TF32 operand rounding, panel sums < 2^21 in the f32
+    accumulator).
 
     ``sid_m``/``cnt_m``: per-row bank and count with dropped rows
     masked to the sentinel bank N / count 0. ``K``: GLOBAL per-bank
     solid totals. Runs only under complex_ (static).
     """
     N = n_banks
-    oh = (
-        _panels(sid_m, fill=N)[..., None]
-        == jnp.arange(N, dtype=jnp.int32)[None, None, :]
-    ).astype(jnp.float32)
-    cnt_p = _panels(cnt_m).astype(jnp.float64)
-    blocks = []
-    JB = 8  # j-block width bounds the [nb, B, JB] wrapped-value temp
-    for j0 in range(0, N, JB):
-        Kb = K[j0 : j0 + JB].astype(jnp.float64)
-        v = _abs_wrap32(cnt_p[..., None] * Kb[None, None, :])
-        blk = None
-        for limb in range(4):  # values < 2^31
-            lv = ((v >> (8 * limb)) & 0xFF).astype(jnp.float32)
-            part = (
-                jnp.einsum(
-                    "bri,brj->bij",
-                    oh,
-                    lv,
-                    preferred_element_type=jnp.float32,
+
+    def chunk_terms(sid_m, cnt_m):
+        oh = (
+            _panels(sid_m, fill=N)[..., None]
+            == jnp.arange(N, dtype=jnp.int32)[None, None, :]
+        ).astype(jnp.float32)
+        cnt_p = _panels(cnt_m).astype(jnp.float64)
+        blocks = []
+        JB = 8  # j-block width bounds the [nb, B, JB] wrapped-value temp
+        for j0 in range(0, N, JB):
+            Kb = K[j0 : j0 + JB].astype(jnp.float64)
+            v = _abs_wrap32(cnt_p[..., None] * Kb[None, None, :])
+            blk = None
+            for limb in range(4):  # values < 2^31
+                lv = ((v >> (8 * limb)) & 0xFF).astype(jnp.float32)
+                part = (
+                    jnp.einsum(
+                        "bri,brj->bij",
+                        oh,
+                        lv,
+                        preferred_element_type=jnp.float32,
+                    )
+                    .astype(jnp.int64)
+                    .sum(axis=0)
+                    << (8 * limb)
                 )
-                .astype(jnp.int64)
-                .sum(axis=0)
-                << (8 * limb)
-            )
-            blk = part if blk is None else blk + part
-        blocks.append(blk)
-    return (
-        blocks[0]
-        if len(blocks) == 1
-        else jnp.concatenate(blocks, axis=1)
+                blk = part if blk is None else blk + part
+            blocks.append(blk)
+        return (
+            blocks[0]
+            if len(blocks) == 1
+            else jnp.concatenate(blocks, axis=1)
+        )
+
+    return chunked_sum(
+        chunk_terms, (sid_m, cnt_m), (N, 0), jnp.zeros((N, N), jnp.int64)
     )
 
 
 def _pair_bin_float(oh_a, oh_b, values_f64):
     """[N, N] f64 pair binning via double-float (hi+lo) f32 einsums.
 
-    precision=HIGHEST forces true-f32 MXU passes (the bf16 default
-    would destroy the double-float decomposition)."""
+    precision=HIGHEST forces true-f32 operands (the default may round
+    them to TF32 on the GPU, which would destroy the double-float
+    decomposition). Each panel sums in float32, so results differ
+    from the CPU backend's in the last bits (~1e-7 relative)."""
     v_hi = values_f64.astype(jnp.float32)
     v_lo = (values_f64 - v_hi.astype(jnp.float64)).astype(jnp.float32)
     out = jnp.zeros(
@@ -354,8 +364,7 @@ def count_join_stats(
         fit in this many bits (= max(0, 2k - 32) for k <= 31). When
         32 + hi_bits + sid bits <= 63 the whole (kmer, sid) key packs
         into one uint64, turning the 3-word sort into a 1-word sort
-        and the 4-column compaction into 3 -- measured ~20% off the
-        dominant sort+compact stages.
+        and the 4-column compaction into 3.
     """
     rows = _rows_from_instances(
         hi, lo, sid, abundance_min, abundance_max,
@@ -1012,12 +1021,9 @@ def _stats_from_rows(
     # ---- pass 2: group surviving rows by kmer (the join) ----
     # Dropped rows are removed by a stable COMPACTION so kept rows are
     # CONTIGUOUS: pair iteration then reads fixed-offset shifted
-    # slices, which are contiguous DMA on TPU. Pass-1 order is already
+    # slices, which are contiguous reads. Pass-1 order is already
     # (kmer, sample)-ascending, so compaction preserves the grouping
-    # and the a < b pair invariant -- no re-sort needed. (A
-    # gather-chain variant benchmarked 40x slower on TPU -- gathers
-    # are as serialized as scatters there; the original full-width
-    # re-sort was ~30-40% of the fused kernel's runtime.)
+    # and the a < b pair invariant -- no re-sort needed.
     if rows_compacted:
         words2, sid2, cnt2 = words, sid, count
     else:
@@ -1139,10 +1145,8 @@ def _pair_accumulate(
     # bin (rows within a k-mer are sample-ascending, so every pair
     # satisfies a < b -- the reference's own flattened symmetric
     # index, SimkaAlgorithm.hpp:364); bins beyond 128 split into
-    # 128-lane blocks that reuse the same lhs. Beyond the threshold
-    # the 4-pass per-shift loop is the measured best (a channel-
-    # packed-lanes variant and a Pallas kernel both lost to it on
-    # chip -- ROADMAP dead ends).
+    # 128-column blocks that reuse the same lhs. Beyond the threshold
+    # the 4-pass per-shift loop runs.
     use_packed = (
         (not simple) and (not complex_) and N <= PAIRBIN_MAX_BANKS
     )
@@ -1180,23 +1184,25 @@ def _pair_accumulate(
     seg_p, sid_p, cnt_p, kept_p = _shift_padded(
         (seg_e, sid2, cnt2, kept2), (E, 0, 0, False), N + 1
     )
-
-    # panel padding MUST fill with N (the masked bank), not 0: the
-    # stacked-einsum dist block is unweighted, so pad rows one-hot at
-    # bank 0 would count as pairs
-    oh_a = (
-        _panels(jnp.where(kept2, sid2, N), fill=N)[..., None]
-        == jnp.arange(N, dtype=jnp.int32)[None, None, :]
-    ).astype(jnp.float32)
     bank_range = jnp.arange(N, dtype=jnp.int32)[None, None, :]
+    keys = ["shared_kmers_ab", "shared_kmers_ba", "shared_distinct", "bray"]
+    if simple:
+        keys += ["hellinger", "chord"]
+    if complex_:
+        keys += ["whittaker", "whittaker_s12", "kl"]
 
-    def shift_body(d, acc):
-        seg_b, sid_b, cnt_b, kept_b = _shift_window(
-            (seg_p, sid_p, cnt_p, kept_p), d, E
-        )
-        m = kept2 & kept_b & (seg_e == seg_b)
-
-        va = jnp.where(m, cnt2, 0).astype(jnp.int64)
+    def pair_terms(seg_a, sid_a, cnt_a, kept_a, seg_b, sid_b, cnt_b, kept_b):
+        """One row chunk's contribution at the current shift: row r
+        pairs with row r + d when both hold the same k-mer."""
+        m = kept_a & kept_b & (seg_a == seg_b)
+        # panel padding MUST fill with N (the masked bank), not 0: the
+        # stacked-einsum dist block is unweighted, so pad rows one-hot
+        # at bank 0 would count as pairs
+        oh_a = (
+            _panels(jnp.where(kept_a, sid_a, N), fill=N)[..., None]
+            == bank_range
+        ).astype(jnp.float32)
+        va = jnp.where(m, cnt_a, 0).astype(jnp.int64)
         vb = jnp.where(m, cnt_b, 0).astype(jnp.int64)
         va_p = _panels(va)
         vb_p = _panels(vb)
@@ -1205,25 +1211,25 @@ def _pair_accumulate(
             == bank_range
         ).astype(jnp.float32)
 
-        out = dict(acc)
-        out["shared_kmers_ab"] = acc["shared_kmers_ab"] + _pair_bin_int(
+        out = {}
+        out["shared_kmers_ab"] = _pair_bin_int(
             oh_a, oh_b, va_p, count_bits, max_value=max_cnt,
             vary_axes=vary_axes,
         )
-        out["shared_kmers_ba"] = acc["shared_kmers_ba"] + _pair_bin_int(
+        out["shared_kmers_ba"] = _pair_bin_int(
             oh_a, oh_b, vb_p, count_bits, max_value=max_cnt,
             vary_axes=vary_axes,
         )
-        out["shared_distinct"] = acc["shared_distinct"] + _pair_bin_int(
+        out["shared_distinct"] = _pair_bin_int(
             oh_a, oh_b, _panels(m.astype(jnp.int64)), 1
         )
-        out["bray"] = acc["bray"] + _pair_bin_int(
+        out["bray"] = _pair_bin_int(
             oh_a, oh_b, jnp.minimum(va_p, vb_p), count_bits,
             max_value=max_cnt, vary_axes=vary_axes,
         )
         if simple:
             prod = (va_p * vb_p).astype(jnp.float64)
-            out["hellinger"] = acc["hellinger"] + _pair_bin_int(
+            out["hellinger"] = _pair_bin_int(
                 oh_a,
                 oh_b,
                 jnp.floor(jnp.sqrt(prod)).astype(jnp.int64),
@@ -1231,35 +1237,31 @@ def _pair_accumulate(
                 max_value=max_cnt,  # isqrt(Ca*Cb) <= max(Ca, Cb)
                 vary_axes=vary_axes,
             )
-            out["chord"] = acc["chord"] + _pair_bin_float(
-                oh_a, oh_b, prod
-            )
+            out["chord"] = _pair_bin_float(oh_a, oh_b, prod)
         if complex_:
             # Whittaker pair term: the reference computes
             # abs((int)((u64)(Ca*Kb) - (u64)(Cb*Ka)))
             # (SimkaAlgorithm.hpp:481) -- the difference wraps to
             # 32-bit signed. Emulate on the rounded double products.
-            Ka = K[sid2].astype(jnp.float64)
+            Ka = K[sid_a].astype(jnp.float64)
             Kb = K[jnp.clip(sid_b, 0, N - 1)].astype(jnp.float64)
-            p1 = jnp.mod(cnt2.astype(jnp.float64) * Kb, 2.0**32)
+            p1 = jnp.mod(cnt_a.astype(jnp.float64) * Kb, 2.0**32)
             p2 = jnp.mod(cnt_b.astype(jnp.float64) * Ka, 2.0**32)
             low = jnp.mod(p1 - p2, 2.0**32).astype(jnp.int64)
             wrapped = jnp.where(low >= 2**31, low - 2**32, low)
             wval = jnp.where(m, jnp.abs(wrapped), 0)
-            out["whittaker"] = acc["whittaker"] + _pair_bin_int(
-                oh_a, oh_b, _panels(wval), 32
-            )
+            out["whittaker"] = _pair_bin_int(oh_a, oh_b, _panels(wval), 32)
             # s12 = |wrap32(cI*K_j)| + |wrap32(cJ*K_i)| over co-present
             # pairs: subtracted from the all-rows A term at
             # finalization so shared k-mers keep only the wrapped
             # difference (see the JoinStats field docstring)
             s12 = jnp.where(
                 m,
-                _abs_wrap32(cnt2.astype(jnp.float64) * Kb)
+                _abs_wrap32(cnt_a.astype(jnp.float64) * Kb)
                 + _abs_wrap32(cnt_b.astype(jnp.float64) * Ka),
                 0,
             )
-            out["whittaker_s12"] = acc["whittaker_s12"] + _pair_bin_int(
+            out["whittaker_s12"] = _pair_bin_int(
                 oh_a, oh_b, _panels(s12), 33
             )
 
@@ -1268,7 +1270,7 @@ def _pair_accumulate(
             # xY = Ca*Kb, yX = Cb*Ka
             # d1 = (Ca/Ka) * log(2*xY/(xY+yX))
             # d2 = (Cb/Kb) * log(2*yX/(xY+yX))
-            caf = cnt2.astype(jnp.float64)
+            caf = cnt_a.astype(jnp.float64)
             cbf = cnt_b.astype(jnp.float64)
             xY = caf * Kb
             yX = cbf * Ka
@@ -1279,10 +1281,22 @@ def _pair_accumulate(
             d2 = (cbf / jnp.maximum(Kb, 1.0)) * jnp.log(
                 jnp.where(m, 2.0 * yX / den, 1.0)
             )
-            out["kl"] = acc["kl"] + _pair_bin_float(
+            out["kl"] = _pair_bin_float(
                 oh_a, oh_b, _panels(jnp.where(m, d1 + d2, 0.0))
             )
         return out
+
+    def shift_body(d, acc):
+        seg_b, sid_b, cnt_b, kept_b = _shift_window(
+            (seg_p, sid_p, cnt_p, kept_p), d, E
+        )
+        part = chunked_sum(
+            pair_terms,
+            (seg_e, sid2, cnt2, kept2, seg_b, sid_b, cnt_b, kept_b),
+            (E, 0, 0, False, E, 0, 0, False),
+            {k: acc[k] for k in keys},
+        )
+        return dict(acc, **part)
 
     acc0 = {
         "shared_kmers_ab": jnp.zeros((N, N), jnp.int64),
@@ -1370,10 +1384,10 @@ def _pairbin_pass(
 
     Replaces the reference's per-pair scalar accumulator loops
     (SimkaAlgorithm.hpp:356-378) for the default distance channels at
-    N(N-1)/2 <= 128. The per-shift einsum path issues 4 one-hot MXU
-    passes per offset d, each [B, N]x[B, N] -- at N << 128 the systolic
-    array pads both lane dims to 128, wasting >90% of every pass. Here
-    ONE pass per shift carries everything:
+    N(N-1)/2 <= 128. The per-shift einsum path issues 4 one-hot
+    matmul passes per offset d, each [B, N]x[B, N] -- tiny matmuls
+    that leave a matrix unit mostly idle. Here ONE pass per shift
+    carries everything:
 
       rhs [B, tri]:      one-hot of the UPPER-TRIANGLE pair bin
         tri_idx(a, b) = a*(2N-a-1)/2 + (b-a-1) -- rows within a k-mer
@@ -1387,20 +1401,16 @@ def _pairbin_pass(
     The [C, tri] output holds co-presence, sum C_a, sum C_b and
     sum min(Ca, Cb) for every pair a < b -- every channel x bin
     product is consumed; there are no discarded blocks, and triangle
-    packing fits N <= 16 in one 128-lane pass (the square N*N layout
-    capped out at N = 11). Extra count limbs ride as extra lhs lanes
-    in the SAME MXU pass; the number of active limbs L is picked ONCE
-    at runtime from max_cnt via lax.switch over per-level loops (a
-    lax.cond per limb per shift measurably drags the loop; typical
-    low-coverage metagenomes run the 1-limb level). Measured on v5e
-    at E=2^24, N=8: 41 ms vs 52 ms for the 4-pass per-shift path
-    (scripts/profiling/bench_pairstage.py; the bf16-operand variant
-    of the same scheme measured slower, 47 ms).
+    packing fits N <= 16 in one 128-column pass (the square N*N layout
+    caps out at N = 11). Extra count limbs ride as extra lhs columns
+    in the SAME matmul pass; the number of active limbs L is picked
+    ONCE at runtime from max_cnt via lax.switch over per-level loops
+    (typical low-coverage metagenomes run the 1-limb level).
 
     Exactness: operands are one-hots (0/1) and 8-bit limbs (<= 255),
-    exact through the MXU's default bf16 operand conversion; panel
-    sums stay < BLOCK_ROWS * 255 < 2^21, exact in the f32
-    accumulator; cross-panel sums are int64.
+    exact under the GPU's default TF32 operand rounding (10 explicit
+    mantissa bits); panel sums stay < BLOCK_ROWS * 255 < 2^21, exact
+    in the f32 accumulator; cross-panel sums are int64.
 
     Args: ``sid_m``/``cnt_m`` are per-row bank and count with dropped
     rows already masked to the sentinel bank N / count 0.
@@ -1432,24 +1442,22 @@ def _pairbin_pass(
 
     def make_loop(active_limbs):
         def run():
-            def shift_body(d, acc):
-                seg_b, sid_b, cnt_b = _shift_window(
-                    (seg_p, sid_p, cnt_p), d, E
-                )
-                m = kept2 & (seg_e == seg_b)
+            def pair_terms(seg_a, sid_a, cnt_a, kept_a, seg_b, sid_b,
+                           cnt_b):
+                m = kept_a & (seg_a == seg_b)
                 # a < b within a segment -> triangle index
                 tri = (
-                    sid_m * (2 * N - sid_m - 1) // 2
-                    + (sid_b - sid_m - 1)
+                    sid_a * (2 * N - sid_a - 1) // 2
+                    + (sid_b - sid_a - 1)
                 )
                 pairbin = jnp.where(m, tri, NB)
                 pb = _panels(pairbin, fill=NB)
-                mn = jnp.minimum(cnt_m, cnt_b)
+                mn = jnp.minimum(cnt_a, cnt_b)
                 chans = [m.astype(jnp.int32)]
                 for limb in range(active_limbs):
                     sh = 8 * limb
                     chans += [
-                        (cnt_m >> sh) & 0xFF,
+                        (cnt_a >> sh) & 0xFF,
                         (cnt_b >> sh) & 0xFF,
                         (mn >> sh) & 0xFF,
                     ]
@@ -1457,10 +1465,10 @@ def _pairbin_pass(
                     [_panels(c).astype(jnp.float32) for c in chans],
                     axis=-1,
                 )
-                # bins split into <= 128-lane blocks; each block's rhs
-                # one-hot is a plain compare-vs-iota slice (the only
-                # operand form XLA keeps fused -- ROADMAP dead ends)
-                # and every block reuses the SAME lhs channel stack
+                # bins split into <= 128-column blocks; each block's
+                # rhs one-hot is a plain compare-vs-iota slice (an
+                # operand form XLA keeps fused) and every block
+                # reuses the SAME lhs channel stack
                 outs = []
                 for p0 in range(0, NB, 128):
                     oh = (
@@ -1489,11 +1497,22 @@ def _pairbin_pass(
                     ba = b_l if ba is None else ba + b_l
                     bray = m_l if bray is None else bray + m_l
                 return {
-                    "shared_distinct": acc["shared_distinct"] + out[0],
-                    "shared_kmers_ab": acc["shared_kmers_ab"] + ab,
-                    "shared_kmers_ba": acc["shared_kmers_ba"] + ba,
-                    "bray": acc["bray"] + bray,
+                    "shared_distinct": out[0],
+                    "shared_kmers_ab": ab,
+                    "shared_kmers_ba": ba,
+                    "bray": bray,
                 }
+
+            def shift_body(d, acc):
+                seg_b, sid_b, cnt_b = _shift_window(
+                    (seg_p, sid_p, cnt_p), d, E
+                )
+                return chunked_sum(
+                    pair_terms,
+                    (seg_e, sid_m, cnt_m, kept2, seg_b, sid_b, cnt_b),
+                    (E, N, 0, False, E, N, 0),
+                    acc,
+                )
 
             acc0 = {
                 "shared_distinct": jnp.zeros((NB,), jnp.int64),

@@ -2,7 +2,7 @@
 
 The reference's multi-node story is job scripts + a shared filesystem
 (qsub templates, sentinel polling -- SimkaPotara.hpp:884-897). The
-TPU-native design:
+design here:
 
 1. every host counts the per-sample spectra of ITS datasets locally
    (pure data parallelism over samples, no communication -- the role
@@ -14,8 +14,9 @@ TPU-native design:
    psum-reduced (the role of simkaMerge + the stats merge).
 
 Everything here runs unchanged on a single process with virtual
-devices (how it is tested) and on a real multi-host pod after
-``jax.distributed.initialize`` -- the all_to_all rides ICI/DCN.
+devices (how it is tested) and on several real hosts after
+``jax.distributed.initialize`` -- the all_to_all rides the device
+interconnect.
 """
 
 from __future__ import annotations
@@ -203,15 +204,15 @@ def datasets_for_process(
 
 def _bin_rows_by_dest(words, sid, cnt, n_dev: int, cap: int, vary_axes: tuple = ()):
     """On-device binning of spectrum rows into [n_dev, cap] blocks by
-    owner-device hash, scatter-free (TPU scatters serialize).
+    owner-device hash, scatter-free.
 
     Sort rows by destination, compute each row's within-destination
     rank from run starts, map to slot = dest*cap + rank, then
     materialize the dense slot layout with a filler sort: concatenate
     one filler row per slot, sort by (slot, is_filler) and keep the
     first row per slot -- data beats filler, empty slots keep their
-    filler (SENTINEL). Replaces the host binning the round-3 judge
-    flagged (VERDICT r3 weak #4): rows never leave the device between
+    filler (SENTINEL). Replaces a host-side binning: rows never leave
+    the device between
     upload and the all_to_all.
     """
     from simka_tpu.ops.kmers import SENTINEL, mix_hash

@@ -1,16 +1,16 @@
-"""Multi-chip execution: k-mer-space sharding over a device mesh.
+"""Multi-device execution: k-mer-space sharding over a device mesh.
 
 The reference shards the k-mer space into partitions via a minimizer
 repartition table and runs one merge process per partition
 (src/SimkaPotara.hpp:713-723, 974-1124), synchronizing through the
 filesystem. Here each device owns a disjoint hash range of the k-mer
 space; every device runs the same fused count/join program on its
-shard and the final `SimkaStatistics` reduction is a ``psum`` over ICI
+shard and the final `SimkaStatistics` reduction is a ``psum``
 (the reference's `operator+=`, src/core/SimkaDistance.cpp:156-213).
 
 Because every accumulator is an order-independent integer sum
 (see ops/countjoin.py), results are bit-identical for any device count
--- the TPU version of the reference's resource-invariance test.
+-- the device version of the reference's resource-invariance test.
 """
 
 from __future__ import annotations
@@ -449,7 +449,7 @@ def _fill_program(mesh: Mesh, shape, value, dtype_name: str):
 def device_fill(mesh: Mesh, shape, value, dtype):
     """A [n_shards, ...] constant created ON the mesh (no H2D): padding
     the routed batches to a stable size class would otherwise ship
-    n_shards x pad columns over the slow host link."""
+    n_shards x pad columns from the host."""
     return _fill_program(mesh, tuple(shape), value, np.dtype(dtype).name)()
 
 

@@ -13,6 +13,19 @@ import time
 from typing import Dict, Optional
 
 
+def device_report() -> Dict:
+    """Where the run executes, as JAX reports it: platform,
+    device_kind and device count."""
+    import jax
+
+    devices = jax.devices()
+    return {
+        "platform": devices[0].platform,
+        "kind": devices[0].device_kind,
+        "count": len(devices),
+    }
+
+
 class StageTimer:
     def __init__(self, metrics: "Metrics", stage: str):
         self.metrics = metrics
@@ -47,6 +60,7 @@ class Metrics:
     def finalize(self) -> Dict:
         total = time.perf_counter() - self._t_start
         out = {
+            "device": device_report(),
             "total_seconds": round(total, 3),
             "stages": {k: round(v, 3) for k, v in self.timings.items()},
             "counters": self.counters,

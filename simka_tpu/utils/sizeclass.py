@@ -1,13 +1,11 @@
 """Padded size classes for device program shapes.
 
 Dynamic row counts are padded UP to static power-of-two classes so
-recompiles stay bounded. Half-octave classes ({2^k, 1.5 * 2^k}) were
-built and measured on the v5e in round 4 to cut the padding waste
-(the e2e bench pads 43.2M rows to 2^26 = +55%): the 1.5*2^24-row join
-ran NO faster than the 2^26 one (join stage 1.05-1.37 s vs
-0.96-1.04 s across repeats) -- XLA's TPU sort evidently doesn't
-reward sub-power-of-two lengths, so the extra program classes buy
-nothing. Power-of-two stays (docs/ROADMAP.md round-4 findings).
+recompiles stay bounded. Power-of-two classes were chosen on the
+system's earlier accelerator, where half-octave classes ran no
+faster; on the GPU, where sort cost may grow linearly with rows, the
+classes can pad by up to 2x. Not yet measured here (ROADMAP.md,
+design item 7).
 """
 
 from __future__ import annotations

@@ -3,12 +3,9 @@
 import gzip
 import os
 
-import pytest
+import numpy as np
 
 from simka_tpu.cli import main
-
-REF = "/root/reference"
-INPUT = f"{REF}/example/simka_input.txt"
 
 
 def test_missing_input_clean_error(capsys):
@@ -25,22 +22,18 @@ def test_malformed_input_clean_error(tmp_path, capsys):
     assert "invalid input line" in capsys.readouterr().err
 
 
-def test_data_info(capsys):
-    if not os.path.isdir(REF):
-        pytest.skip("no reference")
-    rc = main(["-in", INPUT, "-out", "/tmp/x", "-data-info"])
+def test_data_info(capsys, example_input):
+    rc = main(["-in", example_input, "-out", "/tmp/x", "-data-info"])
     assert rc == 0
     out = capsys.readouterr().out
     assert "A: 99 reads" in out
     assert "E: 402 reads" in out
 
 
-def test_end_to_end_default_flags(tmp_path):
-    if not os.path.isdir(REF):
-        pytest.skip("no reference")
+def test_end_to_end_default_flags(tmp_path, example_input):
     out = str(tmp_path / "res")
     rc = main(
-        ["-in", INPUT, "-out", out, "-verbose", "0", "-n-shards", "1"]
+        ["-in", example_input, "-out", out, "-verbose", "0", "-n-shards", "1"]
     )
     assert rc == 0
     # default mode emits the 15 always-on matrices
@@ -63,16 +56,14 @@ def test_end_to_end_default_flags(tmp_path):
     assert len(hist) >= 2 and sum(hist) > 0
 
 
-def test_min_info_roundtrip(tmp_path, capsys):
-    if not os.path.isdir(REF):
-        pytest.skip("no reference")
+def test_min_info_roundtrip(tmp_path, capsys, example_input):
     sketch = str(tmp_path / "s.bin")
     rc = main(
         [
             "min",
             "sketch",
             "-in",
-            INPUT,
+            example_input,
             "-out",
             sketch,
             "-kmer-size",
@@ -86,3 +77,24 @@ def test_min_info_roundtrip(tmp_path, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "Nb datasets: 5" in out
+
+
+def test_single_batch_of_power_of_two_rows(tmp_path):
+    """One coalesced ingest batch whose valid windows fill a
+    power-of-two class exactly (2 samples x 64 reads x 64 k=21
+    windows): the batch's word columns are the join's columns, and
+    freeing the batch must not free them."""
+    rng = np.random.default_rng(0)
+    lines = []
+    for s in range(2):
+        reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (64, 84))]
+        path = tmp_path / f"s{s}.fasta"
+        path.write_bytes(b"".join(b">r\n" + r.tobytes() + b"\n" for r in reads))
+        lines.append(f"S{s}: {path}")
+    inp = tmp_path / "input.txt"
+    inp.write_text("\n".join(lines) + "\n")
+    out = str(tmp_path / "res")
+    rc = main(["-in", str(inp), "-out", out, "-verbose", "0",
+               "-n-shards", "1", "-abundance-min", "1"])
+    assert rc == 0
+    assert os.path.exists(os.path.join(out, "mat_abundance_braycurtis.csv.gz"))

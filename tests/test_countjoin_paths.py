@@ -93,7 +93,7 @@ def test_pairbin_multi_block_matches_shift_loop(
     n_banks, amin, monkeypatch
 ):
     """The multi-block (> 128 triangle lanes) pair-bin regime is
-    auto-off (PAIRBIN_MAX_BANKS=16: the chip A/B measured it losing),
+    auto-off (PAIRBIN_MAX_BANKS=16), 
     so force the threshold up to actually exercise that einsum branch
     against the per-shift loop (ADVICE r4 #1: the plain N=24/32
     params compared the loop against itself)."""
@@ -195,3 +195,38 @@ def test_wide_n_default_channels_consistent(n_banks, dup):
             np.asarray(getattr(ref, name)),
             err_msg=name,
         )
+
+
+@pytest.mark.parametrize(
+    "n_banks,simple,complex_,E",
+    [(8, False, False, 40_000), (8, True, True, 40_000),
+     (20, True, True, 32_768)],
+    ids=["pairbin-ragged", "all-channels-ragged", "shift-loop-whole"],
+)
+def test_chunked_reductions_match_one_chunk(
+    n_banks, simple, complex_, E, monkeypatch
+):
+    """The pair stage, the Whittaker all-rows term and binned_sum
+    reduce row chunk by row chunk (ops/intmatmul.chunked_sum): many
+    small chunks, a ragged last one included, must give the one-chunk
+    result -- integer channels bit for bit."""
+    from simka_tpu.ops import intmatmul
+
+    rng = np.random.default_rng(7)
+    hi, lo, sid = _random_instances(rng, E, n_banks, 10, 50)
+    kw = dict(n_banks=n_banks, simple=simple, complex_=complex_,
+              count_bits=16, hi_bits=10)
+    args = (hi, lo, sid, jnp.int32(1), jnp.int64(10**9))
+    one = count_join_stats(*args, **kw)
+    monkeypatch.setattr(intmatmul, "CHUNK_ROWS", 8192)
+    count_join_stats.clear_cache()
+    try:
+        many = count_join_stats(*args, **kw)
+    finally:
+        count_join_stats.clear_cache()
+    for name in one._fields:
+        a, b = np.asarray(getattr(one, name)), np.asarray(getattr(many, name))
+        if name in ("chord_ninj", "kullback_leibler"):
+            np.testing.assert_allclose(b, a, rtol=1e-12, err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)

@@ -1,8 +1,7 @@
 """The measured CPU baseline (scripts/profiling/cpu_baseline.cpp) must
 compute exactly the statistics ops.countjoin computes on the same
 instance stream -- otherwise its kmers/s is not comparable and
-bench.py's measured vs_baseline would be meaningless (VERDICT r4
-next-step 4)."""
+bench.py's measured vs_baseline would be meaningless."""
 
 import json
 import os

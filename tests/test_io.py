@@ -9,7 +9,7 @@ from simka_tpu.io.bank import (
 )
 from simka_tpu.io.dsl import parse_input_text
 
-EXAMPLE = "/root/reference/example"
+EXAMPLE = "/data/example"  # parse-only: no file is opened
 
 
 def test_parse_dsl_example():
@@ -35,18 +35,20 @@ def test_parse_dsl_errors():
         parse_input_text("")
 
 
-def test_read_fasta_counts():
-    # reference example read counts (SURVEY.md §2.13)
-    assert len(read_sequences(f"{EXAMPLE}/A.fasta")) == 99
-    assert len(read_sequences(f"{EXAMPLE}/B.fasta")) == 102
-    assert len(read_sequences(f"{EXAMPLE}/C.fasta")) == 98
-    assert len(read_sequences(f"{EXAMPLE}/D_paired_1.fasta")) == 93
-    assert len(read_sequences(f"{EXAMPLE}/D_paired_2.fasta")) == 53
+def test_read_fasta_counts(example_dir):
+    # the example's read counts (upstream's, SURVEY.md §2.13)
+    assert len(read_sequences(f"{example_dir}/A.fasta")) == 99
+    assert len(read_sequences(f"{example_dir}/B.fasta")) == 102
+    assert len(read_sequences(f"{example_dir}/C.fasta")) == 98
+    assert len(read_sequences(f"{example_dir}/D_paired_1.fasta")) == 93
+    assert len(read_sequences(f"{example_dir}/D_paired_2.fasta")) == 53
 
 
-def test_read_dataset_cap_per_group():
+def test_read_dataset_cap_per_group(example_dir):
     # one group of two concatenated files: cap spans both
-    one_group = [[f"{EXAMPLE}/D_paired_1.fasta", f"{EXAMPLE}/D_paired_2.fasta"]]
+    d1 = f"{example_dir}/D_paired_1.fasta"
+    d2 = f"{example_dir}/D_paired_2.fasta"
+    one_group = [[d1, d2]]
     all_reads = read_dataset(one_group)
     assert len(all_reads) == 146
     # the first read of each file is "free" (uncounted by the
@@ -59,13 +61,13 @@ def test_read_dataset_cap_per_group():
     # two ';'-groups: the cap applies per group (reference
     # SimkaInputIterator treats each paired group as its own dataset)
     two_groups = [
-        [f"{EXAMPLE}/D_paired_1.fasta"],
-        [f"{EXAMPLE}/D_paired_2.fasta"],
+        [d1],
+        [d2],
     ]
     assert len(read_dataset(two_groups, max_reads=100)) == 146
     assert len(read_dataset(two_groups, max_reads=50)) == 100
     # flat list = single group
-    flat = [f"{EXAMPLE}/D_paired_1.fasta", f"{EXAMPLE}/D_paired_2.fasta"]
+    flat = [d1, d2]
     assert len(read_dataset(flat, max_reads=100)) == 101
 
 

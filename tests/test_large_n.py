@@ -1,7 +1,7 @@
 """Large-N regression: the shift-pair join at N=50 samples.
 
 Simka's headline use case is hundreds of samples
-(/root/reference/README.md use cases; simkaMin.py tiles at 100). The
+(upstream README.md use cases; simkaMin.py tiles at 100). The
 oracle exploits pair locality: every distance matrix entry [i, j]
 depends only on samples i and j (their spectra and per-bank totals),
 so a 2-sample pipeline run is an exact oracle for any entry of the
@@ -9,13 +9,10 @@ so a 2-sample pipeline run is an exact oracle for any entry of the
 without a Python recount over millions of k-mers.
 """
 
-import sys
-
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo/scripts")
-from synthetic50 import make_datasets  # noqa: E402
+from scripts.synthetic50 import make_datasets
 
 from simka_tpu.config import SimkaConfig
 from simka_tpu.core.distances import compute_all_matrices

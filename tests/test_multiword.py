@@ -1,6 +1,6 @@
 """k > 31 (multi-word k-mer) end-to-end consistency.
 
-No reference truth exists beyond k=31 in-tree, so the oracle is a
+No upstream truth exists beyond k=31, so the oracle is a
 pure-python recount over the example reads: per-sample canonical
 k-mer counts, abundance filtering, and the core pairwise sums.
 """
@@ -15,8 +15,6 @@ from simka_tpu.config import SimkaConfig
 from simka_tpu.core.pipeline import compute_statistics
 from simka_tpu.io.bank import read_dataset
 from simka_tpu.io.dsl import parse_input_file
-
-REF_INPUT = "/root/reference/example/simka_input.txt"
 
 
 def test_k_cap_matches_reference_spans():
@@ -119,12 +117,12 @@ def test_k63_kmer_shannon_filter():
 
 
 @pytest.mark.parametrize("k", [33, 41, 63, 64, 75])
-def test_k_gt_31_pipeline(k):
+def test_k_gt_31_pipeline(k, example_input):
     # 63/64 cross the 4-word boundary (2k == 128 is the "2k % 32 == 0"
     # sentinel-headroom case in extract_canonical_kmers_multi); 75
     # exercises a 5-word k-mer (reference spans reach k=127,
     # CMakeLists.txt:66-71)
-    datasets = parse_input_file(REF_INPUT)[:3]  # A, B, C
+    datasets = parse_input_file(example_input)[:3]  # A, B, C
     ids = [d.id for d in datasets]
     seqs = [read_dataset(d.banks) for d in datasets]
     amin = 2

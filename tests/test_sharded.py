@@ -1,6 +1,6 @@
 """Sharding invariance: 1 device vs N devices must be bit-identical.
 
-TPU translation of the reference's resource-invariance test
+Device translation of the reference's resource-invariance test
 (/root/reference/tests/simple_test.py:123-131: different nb-cores /
 memory must produce identical matrices).
 """
@@ -113,3 +113,36 @@ def test_shard_invariance_matrices_bitexact():
             {k: format_matrix_csv(v, ids) for k, v in mats.items()}
         )
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("simple", [False, True], ids=["default", "all"])
+def test_shard_invariance_chunked_reductions(simple, monkeypatch):
+    """Under shard_map the chunked reductions (several row chunks per
+    shard) must still match the single-device result bit for bit: the
+    chunk loop's carry takes its shard-varying type from the data."""
+    if len(jax.devices()) < 4:
+        pytest.skip("not enough devices")
+    from simka_tpu.ops import intmatmul
+    from simka_tpu.parallel import sharded
+
+    rng = np.random.default_rng(11)
+    n_banks = 8
+    hi, lo, sid = random_instances(rng, 60_000, n_banks)
+    kw = dict(n_banks=n_banks, simple=simple, complex_=simple)
+    js1 = count_join_stats(hi, lo, sid, np.int32(1), np.int64(10**9), **kw)
+    monkeypatch.setattr(intmatmul, "CHUNK_ROWS", 4096)
+    mesh = make_mesh(4)
+    ws, ss = shard_instances_by_hash((hi, lo), sid, 4)
+    jax.clear_caches()
+    try:
+        jsN = sharded.sharded_count_join_stats(ws, ss, 1, 10**9, mesh=mesh, **kw)
+    finally:
+        jax.clear_caches()
+    for name in js1._fields:
+        a = np.asarray(getattr(js1, name))
+        b = np.asarray(getattr(jsN, name))
+        if a.dtype.kind == "f":
+            # float channels sum f32 panels whose rows differ per shard
+            np.testing.assert_allclose(a, b, rtol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)

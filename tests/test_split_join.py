@@ -198,7 +198,7 @@ def test_sharded_spectra_split_matches_fused():
     _assert_join_stats_equal(a, b)
 
 
-def test_pipeline_split_forced_matches(monkeypatch, tmp_path):
+def test_pipeline_split_forced_matches(monkeypatch, tmp_path, example_input):
     """Full pipeline with the split forced on vs off: identical
     matrices up to the double-float channels' ~1e-7 panel-regrouping
     tolerance (jensenshannon/chord; every other matrix is driven by
@@ -211,7 +211,7 @@ def test_pipeline_split_forced_matches(monkeypatch, tmp_path):
         monkeypatch.setenv("SIMKA_TPU_SPLIT_JOIN", flag)
         out = tmp_path / f"out{flag}"
         config = SimkaConfig(
-            input_filename="/root/reference/example/simka_input.txt",
+            input_filename=example_input,
             output_dir=str(out),
             kmer_size=21,
             abundance_min=2,

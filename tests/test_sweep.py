@@ -3,7 +3,7 @@
 The reference's disk-partitioned architecture (SimkaPotara.hpp:713-723,
 SimkaMerge.cpp:638-823) exists so runs larger than memory still work;
 core/sweep.py replaces it with sequential hash-range sweeps on one
-chip. Ranges partition the k-mer space, so every statistic must come
+device. Ranges partition the k-mer space, so every statistic must come
 out bit-identical -- including Whittaker/KL, which need the injected
 global per-bank totals.
 """

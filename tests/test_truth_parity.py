@@ -60,7 +60,7 @@ def stats_for(k: int, t: int, n_shards: int = 0):
 
 # n_shards=0 takes the sharded path on the virtual 8-device mesh;
 # n_shards=1 exercises the single-device fully-device-resident path
-# (packed transfer + fused join) that real-chip runs use
+# (packed transfer + fused join) that single-GPU runs use
 @pytest.mark.parametrize(
     "k,t,n_shards",
     [(21, 0, 0), (21, 2, 0), (31, 0, 0), (31, 2, 0),

@@ -4,13 +4,15 @@ import os
 
 import pytest
 
-from simka_tpu.viz.visualize import (
-    load_distance_matrix,
-    pcoa,
-    run_visualization,
-)
-
 REF = "/root/reference"
+
+
+@pytest.fixture(scope="module")
+def viz():
+    pytest.importorskip("matplotlib")  # the optional `viz` extra
+    from simka_tpu.viz import visualize
+
+    return visualize
 
 
 @pytest.fixture(scope="module")
@@ -22,20 +24,20 @@ def result_dir(tmp_path_factory):
     return src
 
 
-def test_load_and_pcoa(result_dir):
-    ids, mat = load_distance_matrix(
+def test_load_and_pcoa(viz, result_dir):
+    ids, mat = viz.load_distance_matrix(
         os.path.join(result_dir, "mat_abundance_braycurtis.csv")
     )
     assert ids == ["A", "B", "C", "D", "E"]
     assert mat.shape == (5, 5)
-    coords, expl = pcoa(mat)
+    coords, expl = viz.pcoa(mat)
     assert coords.shape == (5, 2)
     assert 0 <= expl[0] <= 1
 
 
-def test_run_visualization(result_dir, tmp_path):
+def test_run_visualization(viz, result_dir, tmp_path):
     out = str(tmp_path / "figs")
-    files = run_visualization(
+    files = viz.run_visualization(
         result_dir,
         out,
         metadata_filename=f"{REF}/example/dataset_metadata.csv",
